@@ -17,22 +17,22 @@ test-all:
 # checker (F401/F403/F811/E501/E711/E722/B006/W291/W605/F541...).
 # compileall stays as the syntax gate.
 lint:
-	$(PY) -m compileall -q raytracer_tpu tests bench.py __graft_entry__.py
+	$(PY) -m compileall -q raytracer tests tools bench.py chip_smoke.py __graft_entry__.py
 	$(PY) tools/lint.py
 
 native:
 	g++ -O3 -march=native -shared -fPIC -std=c++17 \
-	  raytracer_tpu/native/rt_native.cpp \
-	  -o raytracer_tpu/native/librt_native.so -lz
+	  raytracer/native/rt_native.cpp \
+	  -o raytracer/native/librt_native.so -lz
 
 # Full-quality render (the reference's `make run_release` analog)
 render:
-	$(PY) -m raytracer_tpu render --scene cornell --integrator sppm \
+	$(PY) -m raytracer render --scene cornell --integrator sppm \
 	  --width 800 --height 800 --spp 256 --out output/test.png
 
 # Small CI render: artifact-sized workload, not thread-count games
 render_ci:
-	$(PY) -m raytracer_tpu render --scene cornell --integrator sppm \
+	$(PY) -m raytracer render --scene cornell --integrator sppm \
 	  --preset ci --out output/ci.png
 
 bench:
@@ -44,5 +44,5 @@ dryrun:
 ci: lint test render_ci
 
 clean:
-	rm -rf output .pytest_cache raytracer_tpu/native/librt_native.so
+	rm -rf output .pytest_cache raytracer/native/librt_native.so
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -13,7 +13,7 @@ or code paths: everything below is numpy f64, rejection sampling, and
 brute-force queries.
 
 Also used to quantify the production SPPM's density-based radius init
-against the reference's unbounded kNN init (VERDICT round-1 item 9): run
+against the reference's unbounded kNN init: run
 :func:`sppm_render` with ``init="knn"`` (reference) vs ``init="density"``
 (production scheme) and compare images.
 """

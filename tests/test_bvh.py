@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracer_tpu.ops import bvh as bvh_ops
-from raytracer_tpu.ops import intersect as ix
-from raytracer_tpu.scene.builtin import cornell_box
-from raytracer_tpu.scene.loader import load_scene
+from raytracer.ops import bvh as bvh_ops
+from raytracer.ops import intersect as ix
+from raytracer.scene.builtin import cornell_box
+from raytracer.scene.loader import load_scene
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
 
@@ -81,7 +81,7 @@ def test_bvh_flat_arrays_wellformed():
 
 @pytest.mark.slow
 def test_render_with_bvh_matches_bruteforce_image(key):
-    from raytracer_tpu.models import path_tracer as pt
+    from raytracer.models import path_tracer as pt
     scene = load_scene(os.path.join(DATA, "scene_10.json"))
     scene_b = bvh_ops.build_bvh(scene, use_native=False)
     kw = dict(width=24, height=24, spp=8, spp_chunk=4, max_depth=6,

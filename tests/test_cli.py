@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from raytracer_tpu.cli import main
+from raytracer.cli import main
 
 
 @pytest.mark.slow

@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import path_tracer
-from raytracer_tpu.ops import intersect as ix
-from raytracer_tpu.ops import materials as mat_ops
-from raytracer_tpu.ops.nee import sample_li
-from raytracer_tpu.scene import SceneBuilder
-from raytracer_tpu.scene.builder import trs_matrix
-from raytracer_tpu.utils.config import RenderConfig
-from raytracer_tpu.utils.obj import load_obj
+from raytracer.models import path_tracer
+from raytracer.ops import intersect as ix
+from raytracer.ops import materials as mat_ops
+from raytracer.ops.nee import sample_li
+from raytracer.scene import SceneBuilder
+from raytracer.scene.builder import trs_matrix
+from raytracer.utils.config import RenderConfig
+from raytracer.utils.obj import load_obj
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
 TEXTURE = os.path.join(os.path.dirname(__file__), "..", "texture")
@@ -52,7 +52,7 @@ class TestMedia:
     @pytest.mark.slow
     def test_density_monotonic(self, key):
         """Denser fog scatters more rays before they exit the slab."""
-        from raytracer_tpu.ops.media import apply_media
+        from raytracer.ops.media import apply_media
         scene_lo = self.scene(0.5)
         scene_hi = self.scene(8.0)
         n = 4096
@@ -119,8 +119,9 @@ class TestNoise:
 
 class TestImageTexture:
     def test_earthmap(self, key):
-        from raytracer_tpu.utils.image import load_image
-        img = load_image(os.path.join(TEXTURE, "earthmap.jpg"))
+        from PIL import Image
+        img = np.asarray(Image.open(os.path.join(TEXTURE, "earthmap.jpg"))
+                         .convert("RGB"))
         b = SceneBuilder()
         m = b.lambertian(b.image_texture(img))
         b.add_sphere((0, 0, 0), 2.0, m)
@@ -147,7 +148,7 @@ class TestBunny:
         b.add_triangles(mesh.positions, mesh.indices, white,
                         normals=mesh.normals, transform=m)
         scene = b.compile()
-        from raytracer_tpu.ops import bvh as bvh_ops
+        from raytracer.ops import bvh as bvh_ops
         scene_b = bvh_ops.build_bvh(scene)
         lo = np.asarray(scene.bounds_min)
         hi = np.asarray(scene.bounds_max)
@@ -261,11 +262,11 @@ class TestTransformRotation:
 @pytest.mark.slow
 def test_cornell_smoke_builtin(key):
     """cornell_smoke: media at render scale (book-2 cornell_smoke class).
-    Must render finite and nonzero end-to-end — since round 5 through the
-    SoA kernel path (apply_media_soa free-flight override) — and the
+    Must render finite and nonzero end-to-end — through the SoA wavefront
+    (apply_media_soa free-flight override) — and the
     smoke must attenuate the scene overall: the dark smoke box absorbs
     light the plain box walls would reflect."""
-    from raytracer_tpu.scene.builtin import cornell_box, cornell_smoke
+    from raytracer.scene.builtin import cornell_box, cornell_smoke
     cfg = RenderConfig(width=32, height=32, samples_per_pixel=16,
                        spp_chunk=4, max_depth=12)
     img_s, _ = path_tracer.render(cornell_smoke(), cfg, key)
@@ -283,12 +284,12 @@ def test_media_soa_matches_aos(key):
     (path_tracer's (N,3) wavefront + ops/media.apply_media) in
     expectation: same fold-29 free-flight streams, same isotropic phase
     semantics. MC band on the same render config."""
-    from raytracer_tpu.scene.builtin import cornell_smoke
+    from raytracer.scene.builtin import cornell_smoke
     scene = cornell_smoke()
     kw = dict(width=24, height=24, spp=24, spp_chunk=4, max_depth=10,
               t_min=1e-3, spawn_eps_rel=1e-4, russian_roulette=True)
     img_soa, rays_soa = path_tracer.render_fn(scene, key,
-                                              intersector="pallas", **kw)
+                                              intersector="xla", **kw)
     img_aos, rays_aos = path_tracer.render_fn(scene, key,
                                               intersector="bruteforce", **kw)
     a, b = np.asarray(img_soa), np.asarray(img_aos)
@@ -309,11 +310,11 @@ def test_media_soa_isotropic_scatter_and_override():
     albedo attenuation, INTER_DIFFUSE)."""
     import jax
     import jax.numpy as jnp
-    from raytracer_tpu.models.wavefront_soa import attrs_soa, scatter_soa
-    from raytracer_tpu.ops.media import apply_media_soa
-    from raytracer_tpu.ops.pallas_intersect import N_SLOTS
-    from raytracer_tpu.scene import SceneBuilder
-    from raytracer_tpu.scene.types import PRIM_MEDIA, INTER_DIFFUSE
+    from raytracer.models.wavefront_soa import attrs_soa, scatter_soa
+    from raytracer.ops.media import apply_media_soa
+    from raytracer.ops.closest_hit import N_SLOTS
+    from raytracer.scene import SceneBuilder
+    from raytracer.scene.types import PRIM_MEDIA, INTER_DIFFUSE
 
     b = SceneBuilder()
     m = b.lambertian(b.constant_texture((1.0, 1.0, 1.0)))

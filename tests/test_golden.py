@@ -14,9 +14,9 @@ import jax
 import pytest
 import numpy as np
 
-from raytracer_tpu.models import path_tracer, sppm
-from raytracer_tpu.scene.builtin import cornell_box, three_spheres
-from raytracer_tpu.utils.config import RenderConfig, SPPMConfig
+from raytracer.models import path_tracer, sppm
+from raytracer.scene.builtin import cornell_box, three_spheres
+from raytracer.utils.config import RenderConfig, SPPMConfig
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -64,7 +64,7 @@ def test_golden_motion_field():
     """Regression anchor for the motion-blur path (kernel velocity rows +
     regen per-sample times): a different seed partition or a c+v*t change
     shifts the blur and trips the bands."""
-    from raytracer_tpu.scene.builtin import motion_field
+    from raytracer.scene.builtin import motion_field
     cfg = RenderConfig(width=32, height=32, samples_per_pixel=64, spp_chunk=8,
                        max_depth=8)
     img, _ = path_tracer.render(motion_field(64, aspect_ratio=1.0), cfg,

@@ -4,9 +4,9 @@ the upgrade demanded by SURVEY.md §4)."""
 import jax.numpy as jnp
 import numpy as np
 
-from raytracer_tpu.ops import intersect as ix
-from raytracer_tpu.scene import SceneBuilder
-from raytracer_tpu.scene.types import PRIM_RECT, PRIM_TRIANGLE
+from raytracer.ops import intersect as ix
+from raytracer.scene import SceneBuilder
+from raytracer.scene.types import PRIM_RECT, PRIM_TRIANGLE
 
 
 def rays(*pairs):

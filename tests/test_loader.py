@@ -6,9 +6,9 @@ import jax
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import path_tracer
-from raytracer_tpu.scene.loader import load_scene
-from raytracer_tpu.utils.config import RenderConfig
+from raytracer.models import path_tracer
+from raytracer.scene.loader import load_scene
+from raytracer.utils.config import RenderConfig
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
 
@@ -122,9 +122,9 @@ def test_sppm_rejects_motion_scenes():
     instead of silently freezing at t=0 (failure-detection parity,
     SURVEY.md §5.3)."""
     import jax
-    from raytracer_tpu.models import sppm
-    from raytracer_tpu.scene import SceneBuilder
-    from raytracer_tpu.utils.config import RenderConfig, SPPMConfig
+    from raytracer.models import sppm
+    from raytracer.scene import SceneBuilder
+    from raytracer.utils.config import RenderConfig, SPPMConfig
 
     b = SceneBuilder()
     b.add_sphere_light((0.0, 5.0, 0.0), 1.0, (4.0, 4.0, 4.0), 1.0)

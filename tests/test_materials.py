@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracer_tpu.ops import intersect as ix
-from raytracer_tpu.ops import materials as mops
-from raytracer_tpu.ops import vec
-from raytracer_tpu.scene import SceneBuilder
-from raytracer_tpu.scene.types import (
+from raytracer.ops import intersect as ix
+from raytracer.ops import materials as mops
+from raytracer.ops import vec
+from raytracer.scene import SceneBuilder
+from raytracer.scene.types import (
     INTER_ABSORB, INTER_DIFFUSE, INTER_REFLECT, INTER_REFRACT, INTER_SPECULAR,
 )
 

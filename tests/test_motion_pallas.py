@@ -1,22 +1,27 @@
-"""Motion blur on the dense kernel path (extension; the reference Ray is
+"""Motion blur on the kernel path (extension; the reference Ray is
 timeless, ray.rs:3-6 — SURVEY.md §8, driver config 5).
 
 Moving-sphere scenes pack velocity rows (pallas_intersect.SPH_VEL_ROW),
-the kernel tests c + v*t_ray, cull AABBs dilate over the camera shutter,
-and the winner's velocity folds into its center slots so attrs are
-motion-agnostic. Dispatch routes moving scenes to "pallas" only when the
-caller supplies per-ray times; the regen wavefront draws one time per
-sample and carries it per lane."""
+the kernel tests c + v*t_ray, cull boxes dilate over the camera shutter,
+and the gathered winner rows carry the effective center c + v*t, so attrs
+are motion-agnostic. Dispatch routes moving scenes to the SoA intersectors
+only when the caller supplies per-ray times; the regen wavefront draws one
+time per sample and carries it per lane. Kernels run in interpret mode."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.ops.intersect import hit_attributes, intersect_bruteforce
-from raytracer_tpu.ops.pallas_intersect import (
-    intersect_pallas, intersect_pallas_full)
-from raytracer_tpu.scene import SceneBuilder
+import functools
+
+from raytracer.models.wavefront_soa import attrs_soa
+from raytracer.ops.closest_hit import winner_data
+from raytracer.ops.intersect import hit_attributes, intersect_bruteforce
+from raytracer.ops.pallas_intersect import intersect_pallas
+from raytracer.scene import SceneBuilder
+
+intersect_pallas = functools.partial(intersect_pallas, interpret=True)
 
 
 @pytest.fixture
@@ -75,62 +80,38 @@ def test_motion_kernel_matches_bruteforce():
 @pytest.mark.slow
 def test_motion_attrs_effective_center():
     """Winner normals/points must come from the EFFECTIVE center c + v*t
-    (the _run center-slot fold), matching the XLA hit_attributes(time)."""
+    (closest_hit.winner_data), matching the XLA hit_attributes(time)."""
     scene = _moving_field()
     o, d, tm = _rand_rays(1024, 10.0, seed=2)
     hb = intersect_bruteforce(scene, o, d, 1e-3, jnp.inf, time=tm)
-    _, attrs, _ = intersect_pallas_full(scene, o, d, 1e-3, jnp.inf, time=tm)
+    hp = intersect_pallas(scene, o, d, 1e-3, jnp.inf, time=tm)
+    h, _ = attrs_soa(o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                     hp.t, hp.prim_type,
+                     winner_data(scene, o, d, hp, time=tm))
     ab = hit_attributes(scene, o, d, hb, time=tm)
     sel = np.isfinite(np.asarray(hb.t))
-    np.testing.assert_allclose(np.asarray(ab.normal)[sel],
-                               np.asarray(attrs.normal)[sel],
+    normal = np.stack([np.asarray(h.nx), np.asarray(h.ny),
+                       np.asarray(h.nz)], -1)
+    p = np.stack([np.asarray(h.px), np.asarray(h.py), np.asarray(h.pz)], -1)
+    np.testing.assert_allclose(np.asarray(ab.normal)[sel], normal[sel],
                                rtol=1e-4, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(ab.p)[sel],
-                               np.asarray(attrs.p)[sel],
+    np.testing.assert_allclose(np.asarray(ab.p)[sel], p[sel],
                                rtol=1e-4, atol=1e-3)
     np.testing.assert_array_equal(np.asarray(ab.front_face)[sel],
-                                  np.asarray(attrs.front_face)[sel])
+                                  np.asarray(h.front)[sel])
 
 
-@pytest.mark.slow
-def test_motion_slabbed_matches_single():
-    """Morton-slabbed motion: velocity rows ride the slab gathers (the
-    scan xs) and every slab tests c + v*t; parity vs the single-kernel
-    run with SPH_SLAB forced below the scene size."""
-    import raytracer_tpu.ops.pallas_intersect as pi
-    scene = _moving_field(n=600)
-    o, d, tm = _rand_rays(512, 10.0, seed=3)
-    h1 = intersect_pallas(scene, o, d, 1e-3, jnp.inf, time=tm)
-    old = pi.SPH_SLAB
-    try:
-        pi.SPH_SLAB = 128            # 600 spheres -> 5 slabs
-        h2 = intersect_pallas(scene, o, d, 1e-3, jnp.inf, time=tm)
-    finally:
-        pi.SPH_SLAB = old
-    _assert_hits_equal(h1, h2, tb_tol=1e-5)
-
-
-@pytest.mark.slow
-def test_motion_ordered_walk_matches_bruteforce():
-    """Large moving fields take the per-tile ordered superchunk walk; its
-    SMEM cull tables are the shutter-dilated AABBs, so fast movers stay
-    findable near-to-far."""
-    scene = _moving_field(n=20000, extent=40.0, vmax=8.0, with_rect=False)
-    o, d, tm = _rand_rays(512, 40.0, seed=4)
-    hb = intersect_bruteforce(scene, o, d, 1e-3, jnp.inf, time=tm)
-    hp = intersect_pallas(scene, o, d, 1e-3, jnp.inf, time=tm)
-    # t ~ 1e2 at |o| ~ 60: a few f32 ulps between the kernel's and XLA's
-    # evaluation orders is ~3e-5 relative
-    _assert_hits_equal(hb, hp, tb_tol=1e-3, rtol=5e-5)
-
-
-def test_motion_resolve_rules():
-    from raytracer_tpu.ops.dispatch import _resolve
+def test_motion_resolve_rules(monkeypatch):
+    from raytracer.ops import dispatch
     scene = _moving_field(n=10)
-    assert _resolve(scene, "auto", has_time=True) == "pallas"
-    assert _resolve(scene, "auto", has_time=False) == "bruteforce"
-    assert _resolve(scene, "leaf", has_time=True) == "pallas"
-    assert _resolve(scene, "bruteforce", has_time=True) == "bruteforce"
+    # off the GPU, moving scenes with per-ray times take the XLA SoA path
+    assert dispatch._resolve(scene, "auto", has_time=True) == "xla"
+    assert dispatch._resolve(scene, "auto", has_time=False) == "bruteforce"
+    assert dispatch._resolve(scene, "bvh", has_time=True) == "xla"
+    assert dispatch._resolve(scene, "bruteforce", has_time=True) == "bruteforce"
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert dispatch._resolve(scene, "auto", has_time=True) == "pallas"
+    assert dispatch._resolve(scene, "auto", has_time=False) == "bruteforce"
 
 
 @pytest.mark.slow
@@ -139,7 +120,7 @@ def test_motion_render_regen_matches_aos(key):
     wavefront (per-sample shutter times in the lane carry); flux must
     match the AoS bruteforce chunk loop within MC noise, and repeat runs
     must be bit-identical."""
-    from raytracer_tpu.models import path_tracer as pt
+    from raytracer.models import path_tracer as pt
     b = SceneBuilder()
     g = b.lambertian(b.checker_texture((0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
     m = b.lambertian(b.constant_texture((0.7, 0.3, 0.3)))
@@ -174,34 +155,3 @@ def test_motion_render_regen_matches_aos(key):
     frozen = b2.compile()
     img_f, _ = pt.render_fn(frozen, key, intersector="auto", **kw)
     assert float(jnp.abs(img_f - img_k).max()) > 0.01
-
-
-@pytest.mark.slow
-def test_slabbed_motion_matches_single(key):
-    """The Morton-slabbed chain must thread per-ray times into every
-    per-slab kernel call (velocity rows travel with each slab's table
-    slice) — winner t/type/data identical to the single-kernel path."""
-    import raytracer_tpu.ops.pallas_intersect as pi
-
-    scene = _moving_field(300)
-    n = 512
-    k1, k2, k3 = jax.random.split(key, 3)
-    o = jax.random.uniform(k1, (n, 3), minval=-12.0, maxval=12.0)
-    d = jax.random.normal(k2, (n, 3))
-    times = jax.random.uniform(k3, (n,))
-    t1, ty1, ix1, data1 = pi._run(scene, o, d, 1e-3, jnp.inf, time=times)
-    old = pi.SPH_SLAB
-    try:
-        pi.SPH_SLAB = 128            # 300 spheres -> 3 slabs
-        t2, ty2, ix2, data2 = pi._run(scene, o, d, 1e-3, jnp.inf,
-                                      time=times)
-    finally:
-        pi.SPH_SLAB = old
-    np.testing.assert_allclose(np.asarray(t1), np.asarray(t2),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(ty1), np.asarray(ty2))
-    hit = np.isfinite(np.asarray(t1))
-    np.testing.assert_array_equal(np.asarray(ix1)[hit], np.asarray(ix2)[hit])
-    np.testing.assert_allclose(np.asarray(data1)[:, hit],
-                               np.asarray(data2)[:, hit],
-                               rtol=1e-5, atol=1e-5)

@@ -6,8 +6,8 @@ pure-Python fallback, and these tests pin the shared layout contract."""
 import numpy as np
 import pytest
 
-from raytracer_tpu.native import runtime as native_rt
-from raytracer_tpu.ops.bvh import _build_flat_python
+from raytracer.native import runtime as native_rt
+from raytracer.ops.bvh import _build_flat_python
 
 pytestmark = pytest.mark.skipif(not native_rt.available(),
                                 reason="native library unavailable")
@@ -47,9 +47,9 @@ def test_bvh_single_prim():
 def test_bvh_traversal_with_native_build():
     import jax.numpy as jnp
     import jax
-    from raytracer_tpu.ops import bvh as bvh_ops
-    from raytracer_tpu.ops import intersect as ix
-    from raytracer_tpu.scene import SceneBuilder
+    from raytracer.ops import bvh as bvh_ops
+    from raytracer.ops import intersect as ix
+    from raytracer.scene import SceneBuilder
     rng = np.random.default_rng(3)
     b = SceneBuilder()
     m = b.lambertian(b.constant_texture((0.5, 0.5, 0.5)))

@@ -1,6 +1,6 @@
-"""PT+NEE mode: same mean as plain PT, lower variance (VERDICT round-1
-item 7). Uses the Cornell direct-lighting analytic oracle: radiance at the
-floor point under the light via one diffuse bounce is
+"""PT+NEE mode: same mean as plain PT, lower variance. Uses the Cornell
+direct-lighting analytic oracle: radiance at the floor point under the
+light via one diffuse bounce is
 
     albedo/pi * Int Le cos(theta) cos(theta') / r^2 dA ~= 0.01046
 
@@ -12,8 +12,8 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from raytracer_tpu.models.path_tracer import trace_radiance
-from raytracer_tpu.scene.builtin import cornell_box
+from raytracer.models.path_tracer import trace_radiance
+from raytracer.scene.builtin import cornell_box
 
 ORACLE = 0.01046
 
@@ -66,7 +66,7 @@ def test_nee_two_sided_rect_light():
     two-sided too (regression for the one-sided bug that zeroed all direct
     light above the plane in --nee mode). Uses a mid-height light panel
     with a diffuse ceiling well above it."""
-    from raytracer_tpu.scene import SceneBuilder
+    from raytracer.scene import SceneBuilder
     b = SceneBuilder()
     white = b.lambertian(b.constant_texture((0.73, 0.73, 0.73)))
     b.add_rect(1, 500.0, 0.0, 555.0, 0.0, 555.0, white)   # ceiling y=500
@@ -92,7 +92,7 @@ def test_nee_two_sided_rect_light():
 @pytest.mark.slow
 def test_nee_full_render_finite():
     """render_fn with nee on a small Cornell image: finite, lit interior."""
-    from raytracer_tpu.models.path_tracer import render_fn
+    from raytracer.models.path_tracer import render_fn
     scene = cornell_box(with_mesh=False)
     img, rays = render_fn(scene, jax.random.PRNGKey(0), width=32, height=32,
                           spp=8, spp_chunk=4, max_depth=6, t_min=1e-3,
@@ -104,13 +104,13 @@ def test_nee_full_render_finite():
 
 @pytest.mark.slow
 def test_nee_many_lights_single_shadow_cast():
-    """Round-4 VERDICT item 5: direct_light picks ONE light per lane with
+    """direct_light picks ONE light per lane with
     the power-proportional categorical (light.rs:220-225 analog) instead of
     unrolling a shadow cast per registered light. Mean must match plain PT
     on a many-emitter scene, and the trace must contain exactly ONE
     intersect per NEE bounce regardless of light count."""
     import numpy as np
-    from raytracer_tpu.scene import SceneBuilder
+    from raytracer.scene import SceneBuilder
 
     b = SceneBuilder()
     white = b.lambertian(b.constant_texture((0.73, 0.73, 0.73)))
@@ -157,12 +157,12 @@ def test_nee_many_lights_single_shadow_cast():
 
 
 def test_nee_moving_emitter_samples_time_correct_position():
-    """Round-4 VERDICT item 7: a moving emitter's light record carries its
+    """A moving emitter's light record carries its
     velocity, so NEE shadow samples evaluate the center at the shading
     ray's shutter time instead of silently using the t=0 position."""
     import numpy as np
-    from raytracer_tpu.ops.nee import direct_light
-    from raytracer_tpu.scene import SceneBuilder
+    from raytracer.ops.nee import direct_light
+    from raytracer.scene import SceneBuilder
 
     b = SceneBuilder()
     b.set_camera((0, 2, 10), (0, 1, 0), time0=0.0, time1=1.0)
@@ -184,7 +184,7 @@ def test_nee_moving_emitter_samples_time_correct_position():
     @jax.jit
     def dl(t):
         return direct_light(scene, key, p, nrm, alb, valid,
-                            intersector="pallas",
+                            intersector="xla",
                             time=jnp.full((n,), t, jnp.float32))
 
     at_t1 = float(np.asarray(dl(1.0)).mean())   # emitter overhead
@@ -208,8 +208,8 @@ def test_nee_close_light_immune_to_global_eps():
     mean). Pin: NEE with the huge global eps stays within MC noise of the
     eps-converged plain-PT image."""
     import jax.numpy as jnp
-    from raytracer_tpu.scene.builder import SceneBuilder
-    from raytracer_tpu.models.path_tracer import trace_radiance
+    from raytracer.scene.builder import SceneBuilder
+    from raytracer.models.path_tracer import trace_radiance
 
     b = SceneBuilder()
     ground = b.lambertian(b.constant_texture((0.6, 0.6, 0.6)))

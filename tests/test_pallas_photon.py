@@ -1,12 +1,18 @@
-"""Dense photon-query kernel vs a numpy direct-sum oracle (interpret mode
-on CPU; compiles natively on TPU). Unlike the grid query there is no
-per-cell cap, so the oracle is an exact direct sum."""
+"""Exact photon queries — the GPU kernel (interpret mode on CPU) and its
+plain XLA form — vs a numpy direct-sum oracle. Unlike the grid query there
+is no per-cell cap, so the oracle is an exact direct sum."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from raytracer_tpu.ops.pallas_photon import query_photons
-from raytracer_tpu.ops import photon_grid as pg
+from raytracer.ops import pallas_photon as pp
+from raytracer.ops import photon_grid as pg
+
+query_photons = functools.partial(pp.query_photons, interpret=True)
 
 
 def oracle(pos, power, norm, valid, points, radius, cap):
@@ -51,7 +57,7 @@ def test_dense_query_matches_oracle():
                       jnp.asarray(points, jnp.float32),
                       jnp.asarray(radius, jnp.float32), cap)
     fr, cr, fc, cc = oracle(pos, power, norm, valid, points, radius, cap)
-    # counts are exact; flux carries bf16 payload/accumulation rounding
+    # counts are exact; flux sums in f32 in another order than the oracle
     np.testing.assert_array_equal(np.asarray(q.count_r), cr)
     np.testing.assert_array_equal(np.asarray(q.count_cap), cc)
     np.testing.assert_allclose(np.asarray(q.flux_r), fr, rtol=2e-2, atol=2e-2)
@@ -107,3 +113,39 @@ def test_dense_query_empty_photons():
                       jnp.asarray(radius, jnp.float32), 0.3)
     assert np.asarray(q.count_r).sum() == 0
     assert np.abs(np.asarray(q.flux_cap)).sum() == 0
+
+
+def _args(seed, n_ph=3000, n_pts=300):
+    pos, power, norm, valid, points, radius = make(seed, n_ph, n_pts)
+    return (jnp.asarray(pos, jnp.float32), jnp.asarray(power, jnp.float32),
+            jnp.asarray(norm, jnp.float32), jnp.asarray(valid),
+            jnp.asarray(points, jnp.float32),
+            jnp.asarray(radius, jnp.float32))
+
+
+@pytest.mark.parametrize("chunk", [256, 1024])
+def test_xla_query_matches_oracle(chunk):
+    """The plain XLA form (the reference and the off-GPU path); the chunk
+    loop stops after the last valid photon, whatever the chunk width."""
+    pos, power, norm, valid, points, radius = make(4)
+    q = pp.query_photons_xla(*_args(4), 0.35, chunk=chunk)
+    fr, cr, fc, cc = oracle(pos, power, norm, valid, points, radius, 0.35)
+    np.testing.assert_array_equal(np.asarray(q.count_r), cr)
+    np.testing.assert_array_equal(np.asarray(q.count_cap), cc)
+    np.testing.assert_allclose(np.asarray(q.flux_r), fr, rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(np.asarray(q.flux_cap), fc, rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_photon_kernel_lowers_for_cuda():
+    args = _args(5, n_ph=2000, n_pts=200)
+    text = jax.jit(lambda *a: pp.query_photons(*a, 0.3)).trace(
+        *args).lower(lowering_platforms=("cuda",)).as_text()
+    assert "__gpu$xla.gpu.triton" in text
+    assert 'name = "photon_query"' in text
+
+
+def test_photon_kernel_requires_interpret_off_gpu():
+    with pytest.raises(ValueError, match="interpret"):
+        jax.jit(lambda *a: pp.query_photons(*a, 0.3))(*_args(6, 1000, 100))

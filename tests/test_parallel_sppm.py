@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import sppm as sppm_model
-from raytracer_tpu.parallel import render as prender
-from raytracer_tpu.parallel.sppm import sppm_iteration_sharded
-from raytracer_tpu.scene.builtin import cornell_box
+from raytracer.models import sppm as sppm_model
+from raytracer.parallel import render as prender
+from raytracer.parallel.sppm import sppm_iteration_sharded
+from raytracer.scene.builtin import cornell_box
 
 
 def run_iters(n_iters, key):
@@ -54,7 +54,7 @@ def test_sharded_gather_matches_single_device(key):
     """The SHARDED final gather must agree statistically with the
     single-device gather_fn on the same state (camera.rs:66-128 executor
     parity across the mesh)."""
-    from raytracer_tpu.parallel.sppm import sppm_gather_sharded
+    from raytracer.parallel.sppm import sppm_gather_sharded
     scene, state = run_iters(2, key)
     mesh = prender.make_mesh(n_px=4, n_spp=2)
     common = dict(width=24, height=24, max_depth=8, t_min=1e-3,
@@ -69,8 +69,7 @@ def test_sharded_gather_matches_single_device(key):
     # different RNG streams -> MC noise; compare means over the interior.
     # At 128 spp the measured worst-over-5-seeds deviation is 0.41% (the
     # gather estimator is low-variance: density estimates + specular Le),
-    # so 3% catches any systematic flux bug while staying noise-proof
-    # (round-2 VERDICT weak #6 tightening).
+    # so 3% catches any systematic flux bug while staying noise-proof.
     m1 = img1[4:20, 4:20].mean()
     m2 = img2[4:20, 4:20].mean()
     assert abs(m1 - m2) / max(m1, 1e-9) < 0.03, (m1, m2)
@@ -80,8 +79,8 @@ def test_sharded_gather_matches_single_device(key):
 def test_sharded_full_render_smoke(key):
     """render_sppm end to end (iterations + gather) on the CPU mesh."""
     import dataclasses
-    from raytracer_tpu.parallel.sppm import render_sppm
-    from raytracer_tpu.utils.config import RenderConfig, SPPMConfig
+    from raytracer.parallel.sppm import render_sppm
+    from raytracer.utils.config import RenderConfig, SPPMConfig
     scene = cornell_box(with_mesh=False)
     cfg = RenderConfig(
         width=16, height=16, samples_per_pixel=2, max_depth=6, spp_chunk=2,

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracer_tpu.ops import photon_grid as pg
+from raytracer.ops import photon_grid as pg
 
 RES = (8, 8, 8)
 BMIN = np.zeros(3, np.float32)

@@ -4,9 +4,9 @@ import pytest
 import jax
 import numpy as np
 
-from raytracer_tpu.models import path_tracer
-from raytracer_tpu.scene.builtin import cornell_box, three_spheres
-from raytracer_tpu.utils.config import RenderConfig
+from raytracer.models import path_tracer
+from raytracer.scene.builtin import cornell_box, three_spheres
+from raytracer.utils.config import RenderConfig
 
 
 def small_config(**kw):
@@ -57,7 +57,7 @@ def test_render_deterministic(key):
 def test_empty_and_lightless_scenes_render_black(key):
     """Regression: zero-length material table used to crash the gather in
     scatter(); empty/lightless scenes must render black and finite."""
-    from raytracer_tpu.scene import SceneBuilder
+    from raytracer.scene import SceneBuilder
     empty = SceneBuilder()
     empty.set_camera((0, 0, 1), (0, 0, -1), vfov=60, aspect_ratio=1.0)
     img, _ = path_tracer.render(empty.compile(), small_config(), key)

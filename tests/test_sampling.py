@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracer_tpu.ops import sampling, vec
+from raytracer.ops import sampling, vec
 
 N = 200_000
 

@@ -4,9 +4,9 @@ import jax
 import pytest
 import numpy as np
 
-from raytracer_tpu.models import path_tracer, sppm
-from raytracer_tpu.scene.builtin import cornell_box
-from raytracer_tpu.utils.config import RenderConfig, SPPMConfig
+from raytracer.models import path_tracer, sppm
+from raytracer.scene.builtin import cornell_box
+from raytracer.utils.config import RenderConfig, SPPMConfig
 
 
 def tiny_config(**kw):
@@ -81,8 +81,8 @@ def test_sppm_resume_from_state(key):
 def test_emit_photons_soa_matches_aos(key):
     """Component-wise emission must reproduce the AoS draws exactly (same
     threefry split structure)."""
-    from raytracer_tpu.models.wavefront_soa import emit_photons_soa
-    from raytracer_tpu.ops.lights import emit_photons
+    from raytracer.models.wavefront_soa import emit_photons_soa
+    from raytracer.ops.lights import emit_photons
     scene = cornell_box(with_mesh=False)
     ph = emit_photons(scene.lights, key, 512)
     ox, oy, oz, dx, dy, dz, wr, wg, wb = emit_photons_soa(
@@ -101,14 +101,14 @@ def test_photon_regen_flux_matches_plain(key):
     assignment over the same per-photon process: total deposited flux and
     deposit counts must agree with the plain scan within MC tolerance, and
     the spawn budget must be met exactly."""
-    from raytracer_tpu.models.wavefront_soa import (
+    from raytracer.models.wavefront_soa import (
         trace_photon_deposits_regen_soa, trace_photon_deposits_soa)
     scene = cornell_box(with_mesh=False)
     B, MB = 20000, 8
     eps = 1e-4 * float(scene.scale)
-    plain = trace_photon_deposits_soa(scene, key, B, MB, 1e-4, eps, "pallas")
+    plain = trace_photon_deposits_soa(scene, key, B, MB, 1e-4, eps, "xla")
     (rg, spawned) = trace_photon_deposits_regen_soa(
-        scene, jax.random.fold_in(key, 1), B, MB, 1e-4, eps, "pallas",
+        scene, jax.random.fold_in(key, 1), B, MB, 1e-4, eps, "xla",
         lanes=4096, return_spawned=True)  # lanes << B -> exercises budget
     assert int(spawned) == B
     def tot(c):
@@ -127,12 +127,12 @@ def test_photon_regen_flux_matches_plain(key):
 @pytest.mark.slow
 def test_photon_regen_budget_respected(key):
     """B <= lanes: the whole budget spawns at init, no rescale."""
-    from raytracer_tpu.models.wavefront_soa import (
+    from raytracer.models.wavefront_soa import (
         trace_photon_deposits_regen_soa)
     scene = cornell_box(with_mesh=False)
     eps = 1e-4 * float(scene.scale)
     comps, spawned = trace_photon_deposits_regen_soa(
-        scene, key, 8000, 6, 1e-4, eps, "pallas", lanes=8000,
+        scene, key, 8000, 6, 1e-4, eps, "xla", lanes=8000,
         return_spawned=True)
     assert int(spawned) == 8000          # B <= lanes: all spawn at init
     assert np.asarray(comps[9]).sum() > 0
@@ -144,7 +144,7 @@ def test_photon_regen_window_close_rescale(key):
     and the nominal/actual power rescale must keep the total deposited
     flux an unbiased estimate of the full-budget run's (same expectation
     per NOMINAL photon, since the estimator divides by B downstream)."""
-    from raytracer_tpu.models.wavefront_soa import (
+    from raytracer.models.wavefront_soa import (
         trace_photon_deposits_regen_soa)
     scene = cornell_box(with_mesh=False)
     eps = 1e-4 * float(scene.scale)
@@ -156,10 +156,10 @@ def test_photon_regen_window_close_rescale(key):
                          np.asarray(comps[5])], -1)[v].sum(0)
 
     full, sp_full = trace_photon_deposits_regen_soa(
-        scene, key, B, MB, 1e-4, eps, "pallas", lanes=4096,
+        scene, key, B, MB, 1e-4, eps, "xla", lanes=4096,
         return_spawned=True)
     short, sp_short = trace_photon_deposits_regen_soa(
-        scene, jax.random.fold_in(key, 1), B, MB, 1e-4, eps, "pallas",
+        scene, jax.random.fold_in(key, 1), B, MB, 1e-4, eps, "xla",
         lanes=4096, return_spawned=True, spawn_window=3)
     assert int(sp_full) == B
     assert int(sp_short) < B             # window closed early

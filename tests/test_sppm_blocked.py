@@ -6,8 +6,8 @@ same structure."""
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import sppm
-from raytracer_tpu.scene.builtin import cornell_box
+from raytracer.models import sppm
+from raytracer.scene.builtin import cornell_box
 
 
 KW = dict(width=24, height=24, n_photons=6000, max_photon_bounces=6,

@@ -1,11 +1,13 @@
 """Host-utility edge cases: OBJ parser, checkpoint format, PNG fallback."""
 
+import os
+
 import numpy as np
 import pytest
 
-from raytracer_tpu.utils import checkpoint as ckpt
-from raytracer_tpu.utils.image import _write_png_python
-from raytracer_tpu.utils.obj import load_obj
+from raytracer.utils import checkpoint as ckpt
+from raytracer.utils.image import _write_png_python
+from raytracer.utils.obj import load_obj
 
 
 class TestObj:
@@ -50,14 +52,14 @@ f 4 5 6
         p.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
         m = load_obj(str(p))
         assert m.normals is None  # builder computes area-weighted normals
-        from raytracer_tpu.scene.builder import _vertex_normals
+        from raytracer.scene.builder import _vertex_normals
         n = _vertex_normals(m.positions, m.indices.astype(np.int64))
         np.testing.assert_allclose(n, [[0, 0, 1]] * 3, atol=1e-6)
 
 
 class TestCheckpoint:
     def test_roundtrip_and_version_check(self, tmp_path):
-        from raytracer_tpu.models.sppm import init_state
+        from raytracer.models.sppm import init_state
         s = init_state(16)
         path = str(tmp_path / "st.npz")
         ckpt.save_state(path, s, seed=5)
@@ -83,3 +85,19 @@ class TestPngFallback:
         from PIL import Image
         back = np.asarray(Image.open(path))
         np.testing.assert_array_equal(back, img)
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_placement(env_set, tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the cache sits
+    at <repo>/output/.jax_cache whatever the working directory."""
+    from raytracer.utils import compile_cache
+    monkeypatch.chdir(tmp_path)
+    env = {"JAX_COMPILATION_CACHE_DIR": str(tmp_path / "c")} if env_set else {}
+    got = compile_cache.cache_dir(env)
+    if env_set:
+        assert got == str(tmp_path / "c")
+    else:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(repo, "output", ".jax_cache")
+        assert os.path.isabs(got)

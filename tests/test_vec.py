@@ -4,7 +4,7 @@ plus batched-broadcast cases the reference cannot express."""
 import jax.numpy as jnp
 import numpy as np
 
-from raytracer_tpu.ops import vec
+from raytracer.ops import vec
 
 
 def v(x, y, z):

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu.models import path_tracer as pt
-from raytracer_tpu.models import sppm as sppm_model
-from raytracer_tpu.models.camera import camera_rays
-from raytracer_tpu.scene.builtin import cornell_box, three_spheres
-from raytracer_tpu.scene.loader import load_scene
+from raytracer.models import path_tracer as pt
+from raytracer.models import sppm as sppm_model
+from raytracer.models.camera import camera_rays
+from raytracer.scene.builtin import cornell_box, three_spheres
+from raytracer.scene.loader import load_scene
 
 import os
 DATA = os.path.join(os.path.dirname(__file__), "..", "data")
@@ -22,7 +22,7 @@ DATA = os.path.join(os.path.dirname(__file__), "..", "data")
 
 def _trace_aos(scene, o, d, key, **kw):
     """Call the AoS loop directly (bypassing the SoA dispatch) by asking
-    for the bruteforce intersector, which is never SoA-eligible."""
+    for the bruteforce intersector, which takes the AoS reference loops."""
     return pt.trace_radiance(scene, o, d, key, intersector="bruteforce",
                              **kw)
 
@@ -35,7 +35,7 @@ def test_soa_matches_aos_cornell():
     pix = jnp.arange(n, dtype=jnp.int32) % (64 * 64)
     o, d = camera_rays(scene.camera, key, pix, 64, 64)
     kw = dict(max_depth=8, t_min=1e-3, spawn_eps=0.1)
-    r_soa = pt.trace_radiance(scene, o, d, key, intersector="pallas", **kw)
+    r_soa = pt.trace_radiance(scene, o, d, key, intersector="xla", **kw)
     r_aos = _trace_aos(scene, o, d, key, **kw)
     # identical keys -> identical random streams; only FP association
     # differs between the component-wise and vector forms
@@ -55,7 +55,7 @@ def test_soa_matches_aos_scene500_checker():
     d = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
     key = jax.random.PRNGKey(2)
     kw = dict(max_depth=6, t_min=1e-3, spawn_eps=2.5e-3)
-    r_soa = pt.trace_radiance(scene, o, d, key, intersector="pallas", **kw)
+    r_soa = pt.trace_radiance(scene, o, d, key, intersector="xla", **kw)
     r_aos = _trace_aos(scene, o, d, key, **kw)
     np.testing.assert_allclose(np.asarray(r_soa.radiance),
                                np.asarray(r_aos.radiance),
@@ -69,7 +69,7 @@ def test_soa_measurement_matches_aos():
     ids = jnp.arange(32 * 32, dtype=jnp.int32)
     kw = dict(width=32, height=32, max_depth=8, t_min=1e-3, spawn_eps=0.1)
     m_soa = sppm_model.measurement_pass(scene, key, ids,
-                                        intersector="pallas", **kw)
+                                        intersector="xla", **kw)
     m_aos = sppm_model.measurement_pass(scene, key, ids,
                                         intersector="bruteforce", **kw)
     v1, v2 = np.asarray(m_soa.valid), np.asarray(m_aos.valid)
@@ -93,7 +93,7 @@ def test_soa_gather_matches_aos():
     est = jnp.full((n, 3), 0.25, jnp.float32)
     kw = dict(max_depth=8, t_min=1e-3, spawn_eps=0.1)
     r_soa, rays_soa = sppm_model.gather_walk(scene, o, d, est, key,
-                                             intersector="pallas", **kw)
+                                             intersector="xla", **kw)
     r_aos, rays_aos = sppm_model.gather_walk(scene, o, d, est, key,
                                              intersector="bruteforce", **kw)
     np.testing.assert_allclose(np.asarray(r_soa), np.asarray(r_aos),
@@ -105,10 +105,11 @@ def test_soa_gather_matches_aos():
 def test_soa_image_texture_scene():
     """Image textures take the stacked-gather fallback inside the SoA
     texture eval; an earthmap sphere must shade identically."""
-    from raytracer_tpu.scene import SceneBuilder
-    from raytracer_tpu.utils.image import load_image
+    from raytracer.scene import SceneBuilder
+    from PIL import Image
     tex_dir = os.path.join(os.path.dirname(__file__), "..", "texture")
-    img = load_image(os.path.join(tex_dir, "earthmap.jpg"))
+    img = np.asarray(Image.open(os.path.join(tex_dir, "earthmap.jpg"))
+                     .convert("RGB"))
     b = SceneBuilder()
     m = b.lambertian(b.image_texture(img))
     b.add_sphere((0, 0, -4), 2.0, m)
@@ -123,113 +124,11 @@ def test_soa_image_texture_scene():
                               -np.ones(n)], -1), jnp.float32)
     key = jax.random.PRNGKey(5)
     kw = dict(max_depth=4, t_min=1e-3, spawn_eps=1e-3)
-    r_soa = pt.trace_radiance(scene, o, d, key, intersector="pallas", **kw)
+    r_soa = pt.trace_radiance(scene, o, d, key, intersector="xla", **kw)
     r_aos = _trace_aos(scene, o, d, key, **kw)
     np.testing.assert_allclose(np.asarray(r_soa.radiance),
                                np.asarray(r_aos.radiance),
                                rtol=2e-3, atol=2e-3)
-
-
-@pytest.mark.slow
-def test_fused_bounce_matches_unfused():
-    """The fused bounce megakernel (intersect+attrs+texture+scatter in one
-    pallas call, fed the same uniform rows) must match the unfused
-    attrs_soa+scatter_soa stage bit-for-bit up to FP association — the
-    uniforms come from identical threefry splits."""
-    from raytracer_tpu.models.wavefront_soa import bounce_step
-    for scene in (cornell_box(with_mesh=True), three_spheres()):
-        n = 2048
-        key = jax.random.PRNGKey(3)
-        pix = jnp.arange(n, dtype=jnp.int32) % (32 * 32)
-        o, d = camera_rays(scene.camera, key, pix, 32, 32)
-        comps = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]]
-        alive = jnp.ones((n,), bool)
-        kw = dict(t_min=1e-3, spawn_eps=0.05, intersector="pallas")
-        bf = bounce_step(scene, key, *comps, alive, fused=True, **kw)
-        bu = bounce_step(scene, key, *comps, alive, fused=False, **kw)
-        assert np.array_equal(np.asarray(bf.inter), np.asarray(bu.inter))
-        for name in ("ar", "ag", "ab", "er", "eg", "eb", "px", "py", "pz",
-                     "nx", "ny", "nz", "nox", "noy", "noz",
-                     "ndx", "ndy", "ndz"):
-            a = np.asarray(getattr(bf, name))
-            b = np.asarray(getattr(bu, name))
-            np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5,
-                                       err_msg=name)
-
-
-@pytest.mark.slow
-def test_fused_render_matches_unfused_render():
-    """Full regen render through the fused kernel vs the unfused stage:
-    same keys, same estimator — images agree to FP tolerance."""
-    from raytracer_tpu.models import wavefront_soa as ws
-    scene = three_spheres(1.0)
-    key = jax.random.PRNGKey(5)
-    kw = dict(width=16, height=16, lanes_per_pixel=2, samples_per_lane=4,
-              max_depth=6, t_min=1e-3, spawn_eps=0.01, intersector="pallas")
-    orig = ws.use_fused
-    try:
-        ws.use_fused = lambda scene, isec: True
-        img_f, rays_f, _ = ws.render_regen_soa(scene, key, **kw)
-        ws.use_fused = lambda scene, isec: False
-        img_u, rays_u, _ = ws.render_regen_soa(scene, key, **kw)
-    finally:
-        ws.use_fused = orig
-    assert int(rays_f) == int(rays_u)
-    np.testing.assert_allclose(np.asarray(img_f), np.asarray(img_u),
-                               rtol=1e-4, atol=1e-5)
-
-
-def _render_regen_gated(scene, key, kw, gate):
-    """render_regen_soa with the megakernel-v2 env gate set to ``gate``."""
-    from raytracer_tpu.models import wavefront_soa as ws
-    old = os.environ.get("RAYTRACER_TPU_REGEN_FUSED")
-    os.environ["RAYTRACER_TPU_REGEN_FUSED"] = gate
-    try:
-        return ws.render_regen_soa(scene, key, **kw)
-    finally:
-        if old is None:
-            del os.environ["RAYTRACER_TPU_REGEN_FUSED"]
-        else:
-            os.environ["RAYTRACER_TPU_REGEN_FUSED"] = old
-
-
-@pytest.mark.slow
-def test_regen_megakernel_matches_xla_body():
-    """Megakernel v2 (the ENTIRE regen-loop body — emission, RR,
-    retire/quota accounting, camera respawn — in one pallas call) vs the
-    XLA body using the fused bounce: same threefry rows feed the same
-    formulas, so rays/steps match exactly and images to FP tolerance.
-    RR on: the kernel's in-VMEM roulette must consume the same uniform
-    row (U_RR) at the same step the XLA body would."""
-    from raytracer_tpu.scene.builtin import cornell_box as cb
-    scene = cb(with_mesh=True)
-    key = jax.random.PRNGKey(11)
-    kw = dict(width=16, height=16, lanes_per_pixel=2, samples_per_lane=4,
-              max_depth=8, t_min=1e-3, spawn_eps=0.1, intersector="pallas",
-              russian_roulette=True)
-    img_k, rays_k, steps_k = _render_regen_gated(scene, key, kw, "1")
-    img_x, rays_x, steps_x = _render_regen_gated(scene, key, kw, "0")
-    assert int(rays_k) == int(rays_x)
-    assert int(steps_k) == int(steps_x)
-    np.testing.assert_allclose(np.asarray(img_k), np.asarray(img_x),
-                               rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.slow
-def test_regen_megakernel_motion_matches_xla_body():
-    """Motion twin: the kernel's per-lane shutter-time respawn (uni row 9
-    + cam time0/time1) must reproduce the XLA body's U_TIME stream."""
-    from raytracer_tpu.scene.builtin import motion_field
-    scene = motion_field(48, aspect_ratio=1.0)
-    key = jax.random.PRNGKey(12)
-    kw = dict(width=12, height=12, lanes_per_pixel=2, samples_per_lane=3,
-              max_depth=6, t_min=1e-3, spawn_eps=1e-3,
-              intersector="pallas", russian_roulette=True)
-    img_k, rays_k, _ = _render_regen_gated(scene, key, kw, "1")
-    img_x, rays_x, _ = _render_regen_gated(scene, key, kw, "0")
-    assert int(rays_k) == int(rays_x)
-    np.testing.assert_allclose(np.asarray(img_k), np.asarray(img_x),
-                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -253,10 +152,10 @@ def test_regen_drain_compaction_unbiased(key):
     sample completes under the same law, and the per-pixel sums must agree
     with the single-loop render within MC tolerance. Also: determinism and
     exact per-pixel sample accounting (rays > 0, finite)."""
-    from raytracer_tpu.models import wavefront_soa as ws
+    from raytracer.models import wavefront_soa as ws
     scene = three_spheres(1.0)
     kw = dict(width=24, height=16, lanes_per_pixel=2, samples_per_lane=8,
-              max_depth=8, t_min=1e-3, spawn_eps=0.01, intersector="pallas",
+              max_depth=8, t_min=1e-3, spawn_eps=0.01, intersector="xla",
               russian_roulette=True)
     img1, rays1, steps1 = ws.render_regen_soa(scene, key, **kw)  # single-loop
     old_min = ws.DRAIN_MIN_LANES
@@ -279,12 +178,12 @@ def test_regen_drain_compaction_unbiased(key):
 @pytest.mark.slow
 def test_gather_regen_drain_compaction(key):
     """Same two-phase drain check for the SPPM gather twin."""
-    from raytracer_tpu.models import wavefront_soa as ws
+    from raytracer.models import wavefront_soa as ws
     scene = cornell_box(with_mesh=False)
     npix = 24 * 24
     est = jnp.ones((npix, 3), jnp.float32) * 0.3
     kw = dict(width=24, height=24, lanes_per_pixel=2, samples_per_lane=6,
-              max_depth=12, t_min=1e-3, spawn_eps=0.05, intersector="pallas")
+              max_depth=12, t_min=1e-3, spawn_eps=0.05, intersector="xla")
     a1, r1, _ = ws.gather_regen_soa(scene, est, key, **kw)
     old_min = ws.DRAIN_MIN_LANES
     try:
@@ -303,8 +202,8 @@ def test_sorted_bounce_bitwise_matches_unsorted(key):
     """bounce_step(sort=True) Morton-permutes lanes around the kernel call
     and inverse-permutes the outputs; lanes are independent and their
     uniform rows travel with them, so every output must be BIT-identical
-    to the unsorted call (both fused and unfused paths, mixed alive)."""
-    from raytracer_tpu.models.wavefront_soa import bounce_step
+    to the unsorted call (mixed alive)."""
+    from raytracer.models.wavefront_soa import bounce_step
     scene = three_spheres()
     n = 2048
     k1, k2, k3 = jax.random.split(key, 3)
@@ -314,115 +213,31 @@ def test_sorted_bounce_bitwise_matches_unsorted(key):
     alive = jax.random.uniform(k3, (n,)) > 0.3
     U = jax.random.uniform(jax.random.fold_in(key, 5), (4, n))
     comps = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]]
-    for fused in (True, False):
-        kw = dict(t_min=1e-3, spawn_eps=1e-3, intersector="pallas",
-                  fused=fused)
-        b0 = bounce_step(scene, U, *comps, alive, sort=False, **kw)
-        b1 = bounce_step(scene, U, *comps, alive, sort=True, **kw)
-        for name, x, y in zip(b0._fields, b0, b1):
-            assert np.array_equal(np.asarray(x), np.asarray(y)), (
-                fused, name)
+    kw = dict(t_min=1e-3, spawn_eps=1e-3, intersector="xla")
+    b0 = bounce_step(scene, U, *comps, alive, sort=False, **kw)
+    b1 = bounce_step(scene, U, *comps, alive, sort=True, **kw)
+    for name, x, y in zip(b0._fields, b0, b1):
+        assert np.array_equal(np.asarray(x), np.asarray(y)), name
 
 
 def test_use_sort_gate():
-    """Sort is OFF in auto mode everywhere — the round-5 TPU A/B measured
-    the per-step argsort at 2.3x the whole render on field64k (6.11 ->
-    14.20 s/32spp; the r4 auto-on gate was never timed on chip and caused
-    BENCH_r04's large-scene regression). Env=1 still forces it on (the
-    sorted path stays bit-identical, pinned by
+    """Sort is OFF unless the variable asks for it, and only ever wraps
+    the kernel (the sorted path stays bit-identical, pinned by
     test_sorted_bounce_bitwise_matches_unsorted)."""
     import os
-    from raytracer_tpu.models.wavefront_soa import use_sort
-    from raytracer_tpu.scene.builtin import sphere_field
+    from raytracer.models.wavefront_soa import use_sort
+    from raytracer.scene.builtin import sphere_field
     small = three_spheres()
     big = sphere_field(8192)
     assert not use_sort(small, "pallas")
     assert not use_sort(big, "pallas")
-    assert not use_sort(big, "leaf")
-    os.environ["RAYTRACER_TPU_RAY_SORT"] = "1"
+    assert not use_sort(big, "xla")
+    os.environ["RAYTRACER_RAY_SORT"] = "1"
     try:
         assert use_sort(small, "pallas")
         assert use_sort(big, "pallas")
-        assert not use_sort(big, "leaf")
+        assert not use_sort(big, "xla")
     finally:
-        os.environ.pop("RAYTRACER_TPU_RAY_SORT", None)
+        os.environ.pop("RAYTRACER_RAY_SORT", None)
 
 
-@pytest.mark.slow
-def test_fused_ordered_branches_match_static():
-    """The fused bounce/regen kernels take the per-tile ordered walk when
-    a sphere stage qualifies (_order_flags) — a branch no production scene
-    reached until the round-5 headline chunk sweep, when it surfaced as a
-    missing ``tile=`` kwarg at both _build_order_operands call sites.
-    Pin it: a field big enough to qualify under shrunk chunk constants
-    must render identically through the ordered fused XLA body, the
-    ordered megakernel (env gate), and the static fused scan."""
-    import raytracer_tpu.ops.pallas_intersect as pi
-    from raytracer_tpu.scene.builtin import sphere_field
-
-    scene = sphere_field(1100)
-    key = jax.random.PRNGKey(21)
-    kw = dict(width=12, height=12, lanes_per_pixel=1, samples_per_lane=2,
-              max_depth=5, t_min=1e-3, spawn_eps=0.01,
-              intersector="pallas", russian_roulette=True)
-
-    old_chunk, old_min = pi.SPH_CHUNK, pi.ORDER_MIN_CHUNKS
-    try:
-        # 1100 spheres @ chunk 128 -> 9 chunks, SUPER-padded to 16 ->
-        # 2 superchunks: qualifies both fused ordered branches
-        pi.SPH_CHUNK, pi.ORDER_MIN_CHUNKS = 128, 8
-        jax.clear_caches()
-        assert pi._wants_order(1101, 128)
-        img_ord, rays_ord, steps_ord = _render_regen_gated(
-            scene, key, kw, "0")      # XLA body -> _call_bounce ordered
-        img_mk, rays_mk, _ = _render_regen_gated(
-            scene, key, kw, "1")      # megakernel -> _call_regen ordered
-
-        pi.ORDER_MIN_CHUNKS = 10 ** 9   # same chunking, static scan
-        jax.clear_caches()
-        img_st, rays_st, steps_st = _render_regen_gated(scene, key, kw, "0")
-    finally:
-        pi.SPH_CHUNK, pi.ORDER_MIN_CHUNKS = old_chunk, old_min
-        jax.clear_caches()
-
-    assert int(rays_ord) == int(rays_st)
-    assert int(steps_ord) == int(steps_st)
-    np.testing.assert_allclose(np.asarray(img_ord), np.asarray(img_st),
-                               rtol=1e-5, atol=1e-5)
-    assert int(rays_mk) == int(rays_st)
-    np.testing.assert_allclose(np.asarray(img_mk), np.asarray(img_st),
-                               rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.slow
-def test_sub_chunk_cull_bitwise_matches_ungated():
-    """SPH_SUB sub-block gating (candidate tests skipped when the tile's
-    slab test misses the sub-AABB) is a pure cull: any candidate it skips
-    could never win the fold, so the render must be BITWISE identical to
-    the ungated scan."""
-    import raytracer_tpu.ops.pallas_intersect as pi
-    from raytracer_tpu.models import wavefront_soa as ws
-    from raytracer_tpu.scene.builtin import sphere_field
-
-    scene = sphere_field(300)
-    key = jax.random.PRNGKey(5)
-    kw = dict(width=12, height=12, lanes_per_pixel=1, samples_per_lane=2,
-              max_depth=5, t_min=1e-3, spawn_eps=0.01,
-              intersector="pallas", russian_roulette=True)
-    old = pi.SPH_SUB
-    try:
-        pi.SPH_SUB = 64        # measured-off by default; pin the machinery
-        jax.clear_caches()
-        assert pi.SPH_SUB_MIN <= 300
-        img_sub, rays_sub, steps_sub = ws.render_regen_soa(scene, key, **kw)
-
-        pi.SPH_SUB = 0
-        jax.clear_caches()
-        img_off, rays_off, steps_off = ws.render_regen_soa(scene, key, **kw)
-    finally:
-        pi.SPH_SUB = old
-        jax.clear_caches()
-
-    assert int(rays_sub) == int(rays_off)
-    assert int(steps_sub) == int(steps_off)
-    np.testing.assert_array_equal(np.asarray(img_sub), np.asarray(img_off))
